@@ -1,11 +1,11 @@
-"""lqr_tpu — a TPU-native content-aware image resizing (seam carving)
+"""lqr_tpu — an accelerator-native content-aware image resizing (seam carving)
 framework with the full capability surface of gimp-lqr-plugin + liblqr.
 
-Layers (mirroring SURVEY.md §1, re-architected TPU-first):
+Layers (mirroring SURVEY.md §1, re-architected accelerator-first):
 
 - ``lqr_tpu.core``     — the carver engine (liblqr replacement): energy
-  stencils, row-DP, visibility maps, materialization. Pure JAX + Pallas.
-- ``lqr_tpu.ops``      — Pallas TPU kernels for the hot paths.
+  stencils, row-DP, visibility maps, materialization. Pure JAX.
+- ``lqr_tpu.ops``      — the CUDA seam-sweep kernel (GPU hot path).
 - ``lqr_tpu.carver``   — the ``Carver`` host API (lqr_carver_* surface).
 - ``lqr_tpu.parallel`` — batching (vmap) and column sharding (shard_map).
 - ``lqr_tpu.render``   — orchestration (render.c replacement): output

@@ -1,4 +1,5 @@
-"""The ``Carver`` host API — TPU-native re-expression of liblqr's carver.
+"""The ``Carver`` host API — accelerator-native re-expression of liblqr's
+carver.
 
 Re-exposes every capability the reference plugin uses (SURVEY.md §2.3):
 
@@ -82,7 +83,7 @@ class Carver:
     """A carver over an [H, W, C] uint8 image (C in 1..4)."""
 
     def __init__(self, pixels: np.ndarray, delta_x: int = 1,
-                 rigidity: float = 0.0, use_pallas: bool | None = None):
+                 rigidity: float = 0.0):
         pixels = np.ascontiguousarray(np.asarray(pixels, np.uint8))
         if pixels.ndim == 2:
             pixels = pixels[:, :, None]
@@ -103,9 +104,6 @@ class Carver:
         self.enl_step = 1.5
         self.dump_vmaps = False
         self.progress = None
-        if use_pallas is None:
-            use_pallas = jax.default_backend() == "tpu"
-        self.use_pallas = bool(use_pallas)
 
         self._C = c
         # reference arrays, image-global orientation ([h, w] layout)
@@ -121,9 +119,8 @@ class Carver:
         self._orientation = 0
         self._vmaps: list[VMap] = []
         # host-side mirrors of the live map's depth and local ref width:
-        # both are deterministic on the host, and a device fetch on this
-        # backend costs a ~25 ms round trip — the orchestration (resize /
-        # flatten / dump) must not block on the chip for bookkeeping
+        # both are deterministic on the host, so the orchestration (resize
+        # / flatten / dump) never waits on the device for bookkeeping
         self._depth_h = 0
         self._map_ref_w = 0
 
@@ -250,13 +247,9 @@ class Carver:
             bias = None if bias is None else jnp.swapaxes(bias, 0, 1)
             rig = None if rig is None else jnp.swapaxes(rig, 0, 1)
             aux = [jnp.swapaxes(a, 0, 1) for a in aux]
-        # Pallas DP needs H % 8 == 0 (else single-block, which must fit
-        # VMEM); fall back to the pure-JAX scan DP otherwise.
-        pallas_ok = (H % 8 == 0) or (H * Wb * 4 <= 4 << 20)
         cfg = EngineConfig(
             H=H, Wb=Wb, C=self._C, delta_x=self.delta_x, nrg=int(self.nrg),
             side_switch_freq=self.side_switch_freq,
-            use_pallas=self.use_pallas and pallas_ok,
             aux_channels=tuple(a.shape[2] for a in aux),
             has_bias=bias is not None,
             has_rig=rig is not None or self.rigidity > 0,
@@ -449,7 +442,7 @@ class Carver:
 
     def get_image_device(self):
         """Current materialized image as a DEVICE array ([h, w, C] u8,
-        image orientation) — for TPU-resident pipelines that feed the
+        image orientation) — for device-resident pipelines that feed the
         result onward without a host round trip (``get_image`` fetches
         to host)."""
         img, _ = self._materialized()

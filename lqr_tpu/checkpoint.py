@@ -33,7 +33,7 @@ from .core.energy import reader_plane
 _FORMAT = 1
 
 _PARAM_FIELDS = ("delta_x", "rigidity", "nrg", "res_order",
-                 "side_switch_freq", "enl_step", "dump_vmaps", "use_pallas")
+                 "side_switch_freq", "enl_step", "dump_vmaps")
 
 
 def save_carver(path: str, c: Carver):
@@ -78,9 +78,11 @@ def load_carver(path: str) -> Carver:
     params = json.loads(bytes(z["params"]).decode())
     assert params["format"] == _FORMAT, params["format"]
 
+    # files written while the caller could pick the seam-search backend
+    # carry one more parameter; only _PARAM_FIELDS are read, so it is
+    # ignored
     c = Carver(z["ref_img"], delta_x=params["delta_x"],
-               rigidity=params["rigidity"],
-               use_pallas=params["use_pallas"])
+               rigidity=params["rigidity"])
     c.nrg = type(c.nrg)(params["nrg"])
     c.res_order = type(c.res_order)(params["res_order"])
     c.side_switch_freq = params["side_switch_freq"]

@@ -99,8 +99,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help=_("animate: width keyframe for the last frame"))
     p.add_argument("--gap-height", type=int,
                    help=_("animate: height keyframe for the last frame"))
-    p.add_argument("--cpu", action="store_true",
-                   help=_("force pure-JAX (no Pallas) path"))
     return p
 
 
@@ -243,8 +241,7 @@ def run_one(path: str, cfg: LqrConfig, args, out_path: str):
         cfg = cfg.replace(pres_layer=resolve(cfg.pres_layer_name),
                           disc_layer=resolve(cfg.disc_layer_name),
                           rigmask_layer=resolve(cfg.rigmask_layer_name))
-    cd = init_carver(image, cfg,
-                     use_pallas=False if args.cpu else None)
+    cd = init_carver(image, cfg)
     ok = render_noninteractive(cfg, _colors(args), cd)
     if not ok:
         raise LqrError(_("render failed for {path}").format(path=path))
@@ -277,6 +274,8 @@ def _split_size_args(args) -> None:
 
 
 def main(argv=None) -> int:
+    from . import compile_cache
+    compile_cache.enable()
     args = build_parser().parse_args(argv)
     _split_size_args(args)
     try:

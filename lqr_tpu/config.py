@@ -1,6 +1,6 @@
 """Configuration records and enums.
 
-TPU-native re-expression of the reference plugin's config surface:
+Accelerator-native re-expression of the reference plugin's config surface:
 
 - ``LqrConfig``  <- ``PlugInVals``   (/root/reference/src/main_common.h:34-60,
   defaults /root/reference/src/main.c:62-87)

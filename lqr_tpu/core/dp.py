@@ -6,9 +6,10 @@ This is the Bellman recursion at the heart of ``lqr_carver_resize``
     M[y, x] = E[y, x] + min_{|dx| <= delta_x} ( M[y-1, x+dx] + rig·|dx|^1.5/H )
 
 implemented as a ``lax.scan`` over rows with the whole row frontier as the
-carry (columns fully vectorized on the VPU). Backpointers are recorded so the
-backtrack is a cheap per-row pointer chase. The Pallas TPU variant with the
-same contract lives in ``lqr_tpu.ops.dp_pallas``.
+carry (columns fully vectorized). Backpointers are recorded so the
+backtrack is a cheap per-row pointer chase. The CUDA kernel with the same
+contract lives in ``lqr_tpu.ops.sweep`` (native/seam_sweep.cu); this scan is
+its reference and the path on every other platform.
 
 Tie-breaking follows SPEC.md §5: candidates ranked by side preference
 (side-switch law of ``lqr_carver_set_side_switch_frequency``,

@@ -1,22 +1,24 @@
 """The arrayified carver engine: seam step, map extension, materialization.
 
-This is the TPU-native replacement for liblqr's carving core (the hot loop of
-``lqr_carver_resize``, SURVEY.md §3.1). Everything here is functional and
-jittable with static shapes.
+This is the accelerator-native replacement for liblqr's carving core (the
+hot loop of ``lqr_carver_resize``, SURVEY.md §3.1). Everything here is
+functional and jittable with static shapes.
 
 Hot-loop design (one seam on the compacted state):
 - energy = gradients of the precomputed reader plane ``cur_b`` (SPEC.md §2;
   a pixel's reader value is carving-invariant so the u8 channels never enter
   the loop);
-- Pallas DP + backtrack (lqr_tpu.ops.dp_pallas) or the lax.scan fallback;
+- DP + backtrack: the CUDA seam sweep (lqr_tpu.ops.sweep) on a GPU, the
+  lax.scan DP (core.dp) elsewhere — chosen in ``_find_seam``;
 - compaction is a roll+select (no gather): removing column s of a row is
-  ``where(lane >= s, shift_left(row), row)`` — pure VPU work;
+  ``where(lane >= s, shift_left(row), row)`` — pure elementwise work;
 - seams are NOT committed to the visibility map per step. They accumulate in
   a [KC, H] history of successive compacted coordinates; once per chunk
   ``_commit_hist`` composes the history back to reference coordinates (the
   exact inverse of the per-step column-map bookkeeping) and scatters all KC
-  seam ids into ``vs`` at once. This keeps the per-seam HBM traffic to
-  (read plane, write backpointers, compact plane) — nothing else.
+  seam ids into ``vs`` at once. This keeps the per-seam device-memory
+  traffic to (read plane, write backpointers, compact plane) — nothing
+  else.
 
 ``extend_map(state, k)`` carves k further seams (dynamic trip count);
 ``materialize`` produces any width in [ref_w - depth, ref_w + depth] from
@@ -33,6 +35,7 @@ import jax.numpy as jnp
 from .state import EngineConfig, MapState, INF
 from .energy import energy_from_plane
 from . import dp as dp_mod
+from ..ops import sweep
 
 # seams per hot chunk: the seam history committed to vs in one pass.
 # 128 rows of [KC, H] i32 history ~ 1 MB at H=2048 — negligible state.
@@ -51,13 +54,22 @@ def pref_is_left(s, freq: int):
 
 
 def _find_seam(cfg: EngineConfig, e, rig, pl, h=None, rigc_vec=None):
-    if cfg.use_pallas:
-        assert h is None and rigc_vec is None, (
-            "ragged heights ride the scan DP, not the Pallas kernels")
-        from ..ops.dp_pallas import find_seam_pallas
-        return find_seam_pallas(e, rig, pl, cfg.delta_x, cfg.has_rig)
-    return dp_mod.find_seam(e, rig, pl, cfg.delta_x, cfg.has_rig,
-                            h=h, rigc_vec=rigc_vec)
+    """The one place that picks the seam search: the CUDA sweep kernel
+    when lowering for a GPU (and the buffer fits it), the scan DP
+    everywhere else. Both return the identical seam."""
+    def plain(e, rig, pl, h, rigc_vec):
+        return dp_mod.find_seam(e, rig, pl, cfg.delta_x, cfg.has_rig,
+                                h=h, rigc_vec=rigc_vec)
+
+    if not sweep.supports(cfg.Wb):
+        return plain(e, rig, pl, h, rigc_vec)
+
+    def kernel(e, rig, pl, h, rigc_vec):
+        return sweep.find_seam(e, rig, pl, cfg.delta_x, cfg.has_rig,
+                               h=h, rigc_vec=rigc_vec)
+
+    return jax.lax.platform_dependent(e, rig, pl, h, rigc_vec,
+                                      cuda=kernel, default=plain)
 
 
 def _carve_once(cfg: EngineConfig, cur_b, cur_bias, cur_rig, w, s,
@@ -70,15 +82,6 @@ def _carve_once(cfg: EngineConfig, cur_b, cur_bias, cur_rig, w, s,
     lane = _lane(H, Wb)
     pl = pref_is_left(s, cfg.side_switch_freq)
 
-    # NOTE: ops.dp_pallas.carve_step_pallas offers fused variants of this
-    # whole step (energy folded into the forward wedge, compaction folded
-    # into the backtrack wedge). RE-MEASURED in r4 with both wedges in
-    # place, at 2048^2 where HBM should favor fusion — they STILL lose
-    # (fused 215-246 vs split 202-218 us/seam; mixed energy-split 242-284):
-    # the seam step is issue/latency-bound after the wedge rewrites, the
-    # in-kernel energy/compact work shares the sequential kernels' VPU,
-    # while the XLA energy and compact passes are embarrassingly parallel
-    # and overlap nothing. The split below stays the production path.
     e = energy_from_plane(cur_b, w, cfg.nrg, h=h)
     if cfg.has_bias:
         e = jnp.where(lane < w, e + cur_bias, INF)
@@ -125,44 +128,6 @@ def seam_step(cfg: EngineConfig, st: MapState) -> MapState:
                        cur_rig=cur_rig, depth=st.depth + 1)
 
 
-def _hot_chunk(cfg: EngineConfig, cur_b, cur_bias, cur_rig, ref_w, d0, kc,
-               h=None, rigc_vec=None):
-    """Carve kc (traced, <= KC) seams from the compacted planes.
-
-    Returns (cur_b', cur_bias', cur_rig', hist [KC, H] i32) where hist[j] is
-    seam d0+j+1 in the compacted coordinates of the frame it was carved
-    from (rows >= kc are unused).
-
-    Only the planes that actually participate (per cfg.has_bias/has_rig)
-    ride the loop carry — threading invariant full-size arrays through a
-    fori_loop costs real copies."""
-    H = cfg.H
-    hist0 = jnp.zeros((KC, H), jnp.int32)
-
-    def pack(b, bias, rig, hist):
-        return ((b,) + ((bias,) if cfg.has_bias else ())
-                + ((rig,) if cfg.has_rig else ()) + (hist,))
-
-    def unpack(c):
-        b, rest = c[0], c[1:]
-        bias = rest[0] if cfg.has_bias else cur_bias
-        rest = rest[1:] if cfg.has_bias else rest
-        rig = rest[0] if cfg.has_rig else cur_rig
-        return b, bias, rig, rest[-1]
-
-    def body(j, c):
-        b, bias, rig, hist = unpack(c)
-        d = d0 + j
-        seam, b, bias, rig = _carve_once(cfg, b, bias, rig, ref_w - d, d + 1,
-                                         h=h, rigc_vec=rigc_vec)
-        hist = jax.lax.dynamic_update_slice(hist, seam[None], (j, 0))
-        return pack(b, bias, rig, hist)
-
-    out = jax.lax.fori_loop(0, kc, body,
-                            pack(cur_b, cur_bias, cur_rig, hist0))
-    return unpack(out)
-
-
 def _commit_hist(vs, ref_w, d0, kc, hist):
     """Commit a chunk's seam history into the visibility map.
 
@@ -192,9 +157,7 @@ def _commit_hist(vs, ref_w, d0, kc, hist):
     # A frame-d0 coordinate is the seam's rank among visible reference
     # columns of its row: commit seam j at the column where the running
     # visible-rank equals R[j]. One lane cumsum + a [KC, H, Wb] rank
-    # match fused into the chunk reduction — replaces the former
-    # sort + posmap gather + column one-hot (r4: the full-plane stable
-    # sort dominated the commit at 2048^2, ~4.3 -> ~1.4 ms per chunk).
+    # match fused into the chunk reduction.
     lane = _lane(H, Wb)
     visible = (vs == 0) & (lane < ref_w)
     pos = jnp.cumsum(visible.astype(jnp.int32), axis=1) - visible
@@ -203,18 +166,17 @@ def _commit_hist(vs, ref_w, d0, kc, hist):
     return vs + _rank_match_reduce(visible, pos, Rm, d0)
 
 
-# chunk-reduce slab threshold (VERDICT r4 weak #4): the rank-match commit
-# builds a [KC, H, Wb] one-hot; XLA fuses the compare+select+reduce on
-# every lowering observed so far, but an unfused lowering would
-# materialize KC*H*Wb bytes (~800 MB at cfg3 scale) — an OOM cliff with
-# no in-code guard. Above this many H*Wb elements the reduce runs in
-# KC/8-row slabs (bit-identical: slab sums hit disjoint columns), which
-# bounds even a fully materialized intermediate to ~1/8th. The threshold
-# sits just above the 2048^2 flagship (4.2M elements, 537 MB worst-case
-# — safe in 16 GB HBM) so the primary config keeps the single fused
-# reduce; cfg3-scale maps (2048x3072 = 6.3M) take the guard.
+# chunk-reduce slab threshold: the rank-match commit builds a [KC, H, Wb]
+# one-hot; XLA fuses the compare+select+reduce, but an unfused lowering
+# would materialize KC*H*Wb bytes (~800 MB at cfg3 scale). Above this many
+# H*Wb elements the reduce runs in KC/_COMMIT_SLABS-row slabs
+# (bit-identical: slab sums hit disjoint columns), which bounds even a
+# fully materialized intermediate to 1/_COMMIT_SLABS of that. The 2048^2
+# flagship (4.2M elements) keeps the single fused reduce; cfg3-scale maps
+# (2048x3072 = 6.3M) take the slabs.
 _COMMIT_SLAB_ELEMS = 5 << 20
 _COMMIT_SLABS = 8
+assert KC % _COMMIT_SLABS == 0, "slabs must tile the chunk exactly"
 
 
 def _rank_match_reduce(visible, pos, Rm, d0):
@@ -240,145 +202,59 @@ def _rank_match_reduce(visible, pos, Rm, d0):
                              jnp.zeros((H, Wb), jnp.int32))
 
 
-def _posmap_from_vs(vs, ref_w):
-    """The compacted-column -> reference-column map of the current frame:
-    posmap[y, r] = reference column of the r-th visible pixel of row y
-    (one stable row sort; full-size scatters/gathers cost ~10x a sort on
-    TPU)."""
-    H, Wb = vs.shape
-    lane = _lane(H, Wb)
-    visible = (vs == 0) & (lane < ref_w)
-    key = 1 - visible.astype(jnp.int32)
-    _, posmap = jax.lax.sort((key, lane), dimension=1, num_keys=1,
-                             is_stable=True)
-    return posmap
-
-
-def _onehot_commit(vs, d0, kc, cols):
-    """Write seam ids d0+1+j at vs[y, cols[j, y]] for j < kc.
-
-    cols: [KC, H] i32 reference columns, one per (seam, row); rows j >= kc
-    are garbage and are masked off. XLA's scatter serializes on TPU
-    (~1.3 ms per 128-seam chunk at 512x384); every committed column is a
-    still-visible one (vs == 0 there), so the commit is a fused one-hot
-    contraction over the chunk axis plus an add — pure VPU work (~50 us).
-    """
-    H, Wb = vs.shape
-    iK = jnp.arange(KC, dtype=jnp.int32)[:, None]              # [KC, 1]
-    colsm = jnp.where(iK < kc, cols, -1)                       # [KC, H]
-    lane = jnp.arange(Wb, dtype=jnp.int32)
-    if H * Wb <= _COMMIT_SLAB_ELEMS:
-        hit = colsm[:, :, None] == lane[None, None, :]         # [KC, H, Wb]
-        vals = (d0 + 1 + iK)[:, :, None]
-        upd = jnp.sum(hit * vals, axis=0, dtype=jnp.int32)     # fused reduce
-        return vs + upd
-
-    # slabbed reduce — same OOM-cliff guard as _rank_match_reduce
-    KS = KC // _COMMIT_SLABS
-    iS = jnp.arange(KS, dtype=jnp.int32)[:, None]              # [KS, 1]
-
-    def slab(i, acc):
-        cs = jax.lax.dynamic_slice(colsm, (i * KS, 0), (KS, H))
-        hit = cs[:, :, None] == lane[None, None, :]            # [KS, H, Wb]
-        vals = (d0 + 1 + i * KS + iS)[:, :, None]
-        return acc + jnp.sum(hit * vals, axis=0, dtype=jnp.int32)
-
-    upd = jax.lax.fori_loop(0, _COMMIT_SLABS, slab,
-                            jnp.zeros((H, Wb), jnp.int32))
-    return vs + upd
-
-
-def _commit_ref_hist(vs, d0, kc, hist):
-    """Commit a chunk's REFERENCE-coordinate seam history (produced by the
-    resident kernel's posmap bookkeeping) into the visibility map."""
-    return _onehot_commit(vs, d0, kc, hist)
-
-
 def _extend_hot(cfg: EngineConfig, st: MapState, k) -> MapState:
     """Carve k further seams (k traced i32), chunked by KC.
 
     Only the mutating arrays ride the while carry; ref/bias/rig/aux are
     loop-invariant and stay outside (threading them costs copies).
 
-    When the planes fit in VMEM, each chunk runs as ONE resident Pallas
-    kernel (ops.carve_resident) instead of per-seam kernel launches —
-    the small-image latency-floor fix (VERDICT r1 "next" #3). The resident
-    kernel carries a column->reference posmap plane and records seams in
-    reference coordinates, so the chunk commit is a single scatter."""
-    from ..ops.carve_resident import resident_ok, carve_chunk_resident
+    One FLAT while_loop over seams: a fori_loop of carve steps nested
+    inside a chunk while_loop makes XLA copy the plane carries at the
+    chunk boundary. The single-level loop carries the planes exactly
+    once; the chunk commit rides a lax.cond that fires every KC-th seam
+    (and on the last), so it is amortized over the chunk."""
     k = jnp.asarray(k, jnp.int32)
-    use_resident = cfg.use_pallas and resident_ok(
-        cfg.H, cfg.Wb, cfg.has_bias, cfg.has_rig)
+    H = cfg.H
+    hist0 = jnp.zeros((KC, H), jnp.int32)
+
+    def pack(b, bias, rig, rest):
+        return ((b,) + ((bias,) if cfg.has_bias else ())
+                + ((rig,) if cfg.has_rig else ()) + rest)
+
+    def unpack(c):
+        b, rest = c[0], c[1:]
+        bias = rest[0] if cfg.has_bias else st.cur_bias
+        rest = rest[1:] if cfg.has_bias else rest
+        rig = rest[0] if cfg.has_rig else st.cur_rig
+        rest = rest[1:] if cfg.has_rig else rest
+        return b, bias, rig, rest
 
     def cond(c):
         return c[-1] < k
 
-    if use_resident:
-        def body(c):
-            cur_b, cur_bias, cur_rig, posmap, vs, depth, done = c
-            kc = jnp.minimum(jnp.int32(KC), k - done)
-            hist, cur_b, cur_bias, cur_rig, posmap = carve_chunk_resident(
-                cur_b, cur_bias, cur_rig, posmap, st.ref_w - depth, depth,
-                kc, cfg.delta_x, cfg.has_bias, cfg.has_rig, int(cfg.nrg),
-                cfg.side_switch_freq, KC)
-            vs = _commit_ref_hist(vs, depth, kc, hist)
-            return (cur_b, cur_bias, cur_rig, posmap, vs,
-                    depth + kc, done + kc)
+    def body(c):
+        b, bias, rig, (vs, hist, depth, done) = unpack(c)
+        j = done % jnp.int32(KC)              # row within the chunk
+        seam, b, bias, rig = _carve_once(cfg, b, bias, rig,
+                                         st.ref_w - depth, depth + 1)
+        hist = jax.lax.dynamic_update_slice(hist, seam[None], (j, 0))
+        depth = depth + 1
+        done = done + 1
+        kc = j + 1                            # seams in this chunk
 
-        posmap0 = _posmap_from_vs(st.vs, st.ref_w)
-        cur_b, cur_bias, cur_rig, _, vs, depth, _ = jax.lax.while_loop(
-            cond, body,
-            (st.cur_b, st.cur_bias, st.cur_rig, posmap0, st.vs, st.depth,
-             jnp.int32(0)))
-    else:
-        # FLAT loop over seams (r5): the r2-r4 shape — a fori_loop of
-        # carve steps nested inside the chunk while_loop — cost ~80
-        # us/seam at 2048^2 over the same fori_loop standalone
-        # (scripts/attr2048.py: extend_nocommit 304 vs hotchunk 211
-        # us/seam; XLA copies the nested loops' plane carries at the
-        # chunk boundary buffers). One single-level while_loop carries
-        # the planes exactly once; the chunk commit rides a lax.cond
-        # that fires every KC-th seam (and on the last), so its
-        # amortized cost is unchanged.
-        H = cfg.H
-        hist0 = jnp.zeros((KC, H), jnp.int32)
+        def commit(vh):
+            v, h = vh
+            return _commit_hist(v, st.ref_w, depth - kc, kc, h), h
 
-        def pack(b, bias, rig, rest):
-            return ((b,) + ((bias,) if cfg.has_bias else ())
-                    + ((rig,) if cfg.has_rig else ()) + rest)
+        vs, hist = jax.lax.cond(
+            (kc == KC) | (done >= k), commit, lambda vh: vh, (vs, hist))
+        return pack(b, bias, rig, (vs, hist, depth, done))
 
-        def unpack(c):
-            b, rest = c[0], c[1:]
-            bias = rest[0] if cfg.has_bias else st.cur_bias
-            rest = rest[1:] if cfg.has_bias else rest
-            rig = rest[0] if cfg.has_rig else st.cur_rig
-            rest = rest[1:] if cfg.has_rig else rest
-            return b, bias, rig, rest
-
-        def body(c):
-            b, bias, rig, (vs, hist, depth, done) = unpack(c)
-            j = done % jnp.int32(KC)              # row within the chunk
-            seam, b, bias, rig = _carve_once(cfg, b, bias, rig,
-                                             st.ref_w - depth, depth + 1)
-            hist = jax.lax.dynamic_update_slice(hist, seam[None], (j, 0))
-            depth = depth + 1
-            done = done + 1
-            kc = j + 1                            # seams in this chunk
-
-            def commit(vh):
-                v, h = vh
-                return _commit_hist(v, st.ref_w, depth - kc, kc, h), h
-
-            vs, hist = jax.lax.cond(
-                (kc == KC) | (done >= k), commit, lambda vh: vh,
-                (vs, hist))
-            return pack(b, bias, rig, (vs, hist, depth, done))
-
-        out = jax.lax.while_loop(
-            cond, body,
-            pack(st.cur_b, st.cur_bias, st.cur_rig,
-                 (st.vs, hist0, st.depth, jnp.int32(0))))
-        cur_b, cur_bias, cur_rig, (vs, _, depth, _) = unpack(out)
+    out = jax.lax.while_loop(
+        cond, body,
+        pack(st.cur_b, st.cur_bias, st.cur_rig,
+             (st.vs, hist0, st.depth, jnp.int32(0))))
+    cur_b, cur_bias, cur_rig, (vs, _, depth, _) = unpack(out)
     return st._replace(vs=vs, cur_b=cur_b, cur_bias=cur_bias,
                        cur_rig=cur_rig, depth=depth)
 
@@ -408,11 +284,10 @@ def materialize_array(arr, vs, ref_w, w, out_Wb: int):
     Returns [H, out_Wb(,C)] with lanes >= w zeroed. Shrink and enlarge per
     SPEC.md §6; requires |w - ref_w| <= depth (caller's contract).
 
-    SORT-based placement, no scatters: XLA serializes TPU scatters (a
-    full-plane scatter at 2048x3072 costs seconds), while a stable row
-    sort by target key produces the identical arrangement — surviving
-    entries carry their target position as key and land compacted in
-    order; dropped entries carry a big key and fall off the sliced end.
+    SORT-based placement, no scatters: a stable row sort by target key
+    produces the arrangement — surviving entries carry their target
+    position as key and land compacted in order; dropped entries carry a
+    big key and fall off the sliced end.
     """
     H, Wb = vs.shape
     lane = _lane(H, Wb)

@@ -1,6 +1,6 @@
 """Carver state pytree and static engine configuration.
 
-TPU-native re-expression of liblqr's ``LqrCarver`` (SURVEY.md §2.3): the
+Accelerator-native re-expression of liblqr's ``LqrCarver`` (SURVEY.md §2.3): the
 mutable C struct becomes an immutable pytree of fixed-shape arrays
 (``MapState``) threaded through jitted transforms, and the per-carver
 settings become a hashable static config (``EngineConfig``) that keys the
@@ -33,7 +33,6 @@ class EngineConfig:
     delta_x: int = 1      # max transversal seam step (lqr_carver_init)
     nrg: int = int(EnergyFunc.GRAD_XABS)
     side_switch_freq: int = DEFAULT_SIDE_SWITCH_FREQUENCY
-    use_pallas: bool = False   # use Pallas TPU kernels for the DP hot path
     aux_channels: tuple = ()   # channel counts of attached aux carvers
     has_bias: bool = False     # bias field in use (skip its carve otherwise)
     has_rig: bool = False      # rigidity in use (skip rig DP terms otherwise)
@@ -114,7 +113,7 @@ def init_state(cfg: EngineConfig, pixels, bias=None, rig=None,
 
     pixels = pad_w(pixels)
     # absent bias/rig planes are stored as None (pytree-empty), not zero
-    # arrays — they would otherwise double the state's HBM footprint for
+    # arrays — they would otherwise double the state's device footprint for
     # the common no-mask case (cfg.has_bias/has_rig gate every use)
     if cfg.has_bias:
         assert bias is not None, "cfg.has_bias set but no bias given"

@@ -227,7 +227,7 @@ def run_plugin(image: Image, run_mode: RunMode,
                cfg: LqrConfig | None = None,
                colors: SeamColors | None = None,
                store: SettingsStore | None = None,
-               dialog_driver=None, use_pallas: bool | None = None):
+               dialog_driver=None):
     """The PDB run() dispatch (main.c:296-450). Returns (image, cfg) of
     the rendered result.
 
@@ -271,7 +271,7 @@ def run_plugin(image: Image, run_mode: RunMode,
                 raise LqrError(_("dialog reported a fatal state"))
             return image, None          # CANCEL: no render, nothing saved
 
-    cd = init_carver(image, cfg, use_pallas=use_pallas)
+    cd = init_carver(image, cfg)
     ok = render_noninteractive(cfg, colors, cd)
     if not ok:
         raise LqrError(_("render failed"))

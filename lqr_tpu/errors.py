@@ -8,7 +8,7 @@ user-facing validation macros:
 - ``BPP_CHECK`` / ``IMAGE_TYPE_CHECK`` (/root/reference/src/render.c:48-62),
 - ``IMAGE_CHECK`` / ``LAYER_CHECK`` (/root/reference/src/main.h:131-153),
 
-each printing a ``g_message`` a user can act on. The TPU-native analog is a
+each printing a ``g_message`` a user can act on. The native analog here is a
 small exception hierarchy: every public API boundary (Carver, render, CLI)
 raises a typed ``LqrError`` with an actionable message instead of tripping
 an assert; the CLI catches ``LqrError`` and exits cleanly.

@@ -54,13 +54,11 @@ class InteractiveSession:
     """Drives render_interactive over a live carver."""
 
     def __init__(self, image: Image, cfg: LqrConfig | None = None,
-                 colors: SeamColors | None = None, debounce_s: float = 0.0,
-                 use_pallas: bool | None = None):
+                 colors: SeamColors | None = None, debounce_s: float = 0.0):
         self.cfg = cfg or LqrConfig()
         self.colors = colors or SeamColors()
         self.debounce_s = debounce_s
-        self.cd: CarverData = init_carver(image, self.cfg, interactive=True,
-                                          use_pallas=use_pallas)
+        self.cd: CarverData = init_carver(image, self.cfg, interactive=True)
         layer = self.cd.image.layer_by_name(self.cd.layer_name)
         self._initial_size = (layer.width, layer.height)
         self._pending = None

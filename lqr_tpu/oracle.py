@@ -2,7 +2,7 @@
 
 This module is deliberately simple (loops where clarity wins) and is the
 ground truth that both the C++ single-core reference (``native/lqr_ref.cpp``)
-and the JAX/Pallas TPU engine (``lqr_tpu.core``) are tested against.
+and the JAX engine (``lqr_tpu.core``) are tested against.
 
 It implements the capability surface of liblqr as used by the reference
 plugin (SURVEY.md §2.3): energy functions, bias/rigidity fields, the

@@ -1,8 +1,8 @@
 """Batched carving — vmap over images and seam schedules.
 
 The reference processes one image per process (SURVEY.md §2.3 "parallelism:
-none"); this module is the TPU-native replacement for running N GIMP
-processes: thousands of images carve together on one chip (benchmark config
+none"); this module is the accelerator-native replacement for running N
+GIMP processes: thousands of images carve together on one device (benchmark config
 #4: 4096x 1MP, 25% width reduction).
 
 Ragged batches are padded to a common [H, Wb] with per-image widths AND
@@ -21,7 +21,6 @@ the identical seam sequence (lqr_carver_attach,
 
 from __future__ import annotations
 
-import dataclasses
 import functools
 
 import numpy as np
@@ -55,7 +54,7 @@ def init_state_batched(cfg: EngineConfig, pixels, widths,
     assert (H, Wb, C) == (cfg.H, cfg.Wb, cfg.C)
     pixels = jnp.asarray(pixels, jnp.uint8)
     # absent planes stay None (pytree-empty) — a [B, H, Wb] zero field per
-    # plane would dominate batch HBM at throughput batch sizes
+    # plane would dominate batch device memory at throughput batch sizes
     bias = jnp.asarray(bias, jnp.float32) if cfg.has_bias else None
     rig = jnp.asarray(rig, jnp.float32) if cfg.has_rig else None
     aux_p = tuple(jnp.asarray(a, jnp.uint8) for a in aux)
@@ -69,33 +68,14 @@ def init_state_batched(cfg: EngineConfig, pixels, widths,
 
 
 @functools.partial(jax.jit, static_argnums=0)
-def extend_map_scan_pallas(cfg: EngineConfig, st: MapState, k):
-    """Pallas tier for equal-height batches: lax.scan over the batch
-    axis, each image carved by the SINGLE-image engine (the resident
-    VMEM kernel where it fits, the wedge kernels otherwise). One
-    dispatch covers the whole batch; per-image work runs at the solo
-    engine's per-seam rate instead of the scan DP's (~15x at cfg5's
-    360x640 — the scan DP's sequential row steps are tiny ops that
-    cannot hide their own overheads). Bit-identical to solo carves by
-    construction — it IS the solo path, vmapped over nothing.
-
-    cfg must carry use_pallas=True; k: [B] per-image seam counts."""
-    def body(c, xs):
-        st_i, k_i = xs
-        return c, eng._extend_hot(cfg, st_i, k_i)
-
-    _, out = jax.lax.scan(body, jnp.int32(0), (st, k))
-    return out
-
-
-@functools.partial(jax.jit, static_argnums=0)
 def extend_map_batched(cfg: EngineConfig, st: MapState, k,
                        heights=None, rigc=None) -> MapState:
     """Carve k[b] further seams into each image's map.
 
-    FLAT single-level loop over seams (r5, mirroring engine._extend_hot):
-    the r2-r4 vmapped-fori-inside-while nesting cost ~80 us/seam of plane
-    carry copies at big sizes (scripts/attr2048.py). Per-image seam
+    FLAT single-level loop over seams, mirroring engine._extend_hot (a
+    vmapped fori nested in a while makes XLA copy the plane carries).
+    The seam search runs through engine._find_seam under vmap, so on a
+    GPU one sweep-kernel launch covers the whole batch. Per-image seam
     counts are masked per step; the chunk commit rides a lax.cond every
     KC-th step with per-image chunk depths (images that exhausted their
     k simply stop accumulating — their chunk kc is smaller).
@@ -209,7 +189,7 @@ class BatchCarver:
 
     def __init__(self, images, *, delta_x: int = 1, nrg: int = 0,
                  rigidity: float = 0.0, biases=None, rigmasks=None,
-                 aux=None, mesh=None, use_pallas: bool | None = None):
+                 aux=None, mesh=None):
         """images: list of [h_i, w_i, C] u8 arrays (same C; ragged sizes
         padded internally — seam outputs are bit-identical to solo carves).
 
@@ -235,8 +215,11 @@ class BatchCarver:
             # pre-stacked equal-size batch (e.g. utils.codec.stage_wave's
             # output): when the lane dim is already padded to the bucket
             # the buffer is used AS-IS — zero host copies on the staging
-            # path (VERDICT r4 #5). Caller contract: lanes >= width (if
-            # any) are zero.
+            # path. Caller contract: lanes >= width (if any) are zero.
+            if images.dtype != np.uint8:
+                raise LqrImageError(
+                    _("a stacked batch must be uint8, got {dt}")
+                    .format(dt=images.dtype))
             B, H, W, C = images.shape
             Wb = max(128, round_up(W, 128))
             if Wb == W:
@@ -319,29 +302,14 @@ class BatchCarver:
             aux_planes = tuple(planes)
             aux_channels = tuple(chans)
 
-        # Two batched tiers (r4): equal-height batches on a TPU scan the
-        # batch axis through the SINGLE-image Pallas engine (resident
-        # kernel and wedge kernels — extend_map_scan_pallas, ~15x the
-        # scan DP at cfg5's shape); ragged heights / no-Pallas backends
-        # use the vmapped scan DP (every scan step a [B, Wb] row-block —
-        # full VPU utilization without Pallas). use_pallas: None = auto
-        # (Pallas tier on a TPU backend), or force for tests
-        # (LQR_PALLAS_INTERPRET=1 exercises it on CPU).
         self.cfg = EngineConfig(H=H, Wb=Wb, C=C, delta_x=delta_x, nrg=nrg,
-                                use_pallas=False, has_bias=has_bias,
-                                has_rig=has_rig,
+                                has_bias=has_bias, has_rig=has_rig,
                                 aux_channels=aux_channels)
-        if use_pallas is None:
-            use_pallas = jax.default_backend() == "tpu"
         self.heights = heights
         self.widths = widths
         # ragged machinery only when heights actually differ — equal
         # heights take the leaner non-ragged program
         self.ragged = bool((heights != H).any())
-        self.scan_pallas = (bool(use_pallas) and not self.ragged
-                            and mesh is None)
-        self._cfg_pl = (dataclasses.replace(self.cfg, use_pallas=True)
-                        if self.scan_pallas else None)
         self._rigc = (jnp.asarray(rigc_table(heights, delta_x))
                       if (self.ragged and has_rig) else None)
         self.state = init_state_batched(self.cfg, buf, widths,
@@ -367,9 +335,6 @@ class BatchCarver:
             from .sharding import extend_map_sharded
             self.state = extend_map_sharded(self.mesh, self.cfg,
                                             self.state, jnp.asarray(n))
-        elif self.scan_pallas:
-            self.state = extend_map_scan_pallas(self._cfg_pl, self.state,
-                                                jnp.asarray(n))
         else:
             self.state = extend_map_batched(
                 self.cfg, self.state, jnp.asarray(n),

@@ -1,20 +1,20 @@
 """Profiling / tracing / roofline accounting.
 
 The reference's only instrumentation is a compiled-out wall-clock macro
-(``__CLOCK_IT__``, /root/reference/src/render.c:36-38). The TPU framework
-needs real observability (SURVEY.md §5): this module provides
+(``__CLOCK_IT__``, /root/reference/src/render.c:36-38). The device
+framework needs real observability (SURVEY.md §5): this module provides
 
 - ``trace(logdir)``: context manager around ``jax.profiler`` — produces a
   Perfetto/XProf trace of the carve (kernels, DMA, host callbacks);
 - ``annotate(name)``: named TraceAnnotation for host-side phases, nestable
   inside ``trace`` (shows as a labeled span);
-- ``seam_roofline(...)``: analytic per-seam cost model — HBM bytes and VPU
-  work of one seam step at a given size, with the machine's
+- ``seam_roofline(...)``: analytic per-seam cost model — device-memory
+  bytes of one seam step at a given size, with the device's
   speed-of-light bound, so measured seams/s can be judged against the
   hardware ceiling (the BASELINE "seams/sec/chip ... speed-of-light"
   requirement);
-- ``Stopwatch``: phase timing with the measurement hygiene this backend
-  needs (sync via device fetch; see bench.py).
+- ``Stopwatch``: phase timing that waits for the device
+  (``block_until_ready``) before reading the clock.
 """
 
 from __future__ import annotations
@@ -22,8 +22,6 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
-
-import numpy as np
 
 
 @contextlib.contextmanager
@@ -44,67 +42,47 @@ def annotate(name: str):
     return jax.profiler.TraceAnnotation(name)
 
 
-# v5e per-chip: 819 GB/s HBM, VPU 8x128 lanes x 4 ALUs at ~0.94 GHz.
-_HBM_GBPS = {"tpu v5 lite": 819.0, "tpu v5e": 819.0, "tpu v4": 1228.0,
-             "tpu v5p": 2765.0, "tpu v6e": 1640.0}
-_DEFAULT_HBM = 819.0
-
-
-# Measured v5e chain constants (round-3 calibration, scripts/devtime.py
-# + synthetic chain kernels): a CHAINED cross-lane roll costs ~55 ns of
-# latency, a chained min/add/select ~2.5 ns, and the per-seam sweeps are
-# latency-bound on their per-row dependency chains — NOT HBM-bound (the
-# planes are VMEM-resident at small sizes) and NOT issue-bound (adding
-# the whole backpointer select tree to the row loop measures ~free).
-_TAU_CHEAP_NS = 2.5      # chained elementwise op latency
-_TAU_ROLL_NS = 55.0      # chained cross-lane roll latency
-_FWD_CHAIN_DEPS = 3      # wedge fwd: min, min, +e per row (no rolls)
-_BWD_CHAIN_CHEAP = 5     # chase: eq-mul, select, 2 adds... per row
-_BWD_ROLLS = 1           # chase: one roll-level per row (one-hot shift)
+# Peak device-memory bandwidth (GB/s) by ``device_kind``. Source: NVIDIA's
+# H100 SXM5 data sheet (80 GB HBM3 at 3.35 TB/s). A device not listed here
+# is an error, never a default.
+PEAK_HBM_GBPS = {
+    "NVIDIA H100 80GB HBM3": 3350.0,
+}
 
 
 @dataclasses.dataclass
 class Roofline:
-    hbm_bytes: int          # HBM traffic of one seam step
+    hbm_bytes: int          # device-memory traffic of one seam step
     seq_rows: int           # rows on the sequential DP critical path
-    sol_seams_per_s: float  # speed-of-light bound from HBM alone
+    sol_seams_per_s: float  # speed-of-light bound from memory traffic alone
     breakdown: dict
-    chain_floor_seams_per_s: float = 0.0  # dependency-chain latency bound
-    # the chain latency constants (_TAU_*) are measured on v5e; HBM rates
-    # are device-keyed but the chain floor is NOT — on other device kinds
-    # treat chain_floor/bound as v5e-calibrated estimates (ADVICE r3 #2)
-    chain_calibration: str = "v5e"
+    device_kind: str
 
     def efficiency(self, measured_seams_per_s: float) -> float:
         return measured_seams_per_s / self.sol_seams_per_s
 
-    @property
-    def bound(self) -> str:
-        """Which limit binds: the sequential dependency chains or HBM."""
-        return ("chain-latency"
-                if self.chain_floor_seams_per_s < self.sol_seams_per_s
-                else "hbm")
-
 
 def seam_roofline(H: int, W: int, has_bias: bool = False,
-                  has_rig: bool = False, hbm_gbps: float | None = None
+                  has_rig: bool = False, device_kind: str | None = None
                   ) -> Roofline:
-    """Analytic HBM cost of one seam step on the split hot path.
+    """Analytic device-memory traffic of one seam step on the split hot
+    path, and the seams/s that traffic allows at the device's peak.
 
     Traffic per seam (engine._carve_once + the amortized per-chunk commit):
       energy:    read cur_b (f32) + write e (f32)
       DP fwd:    read e + write bp (i8)
       backtrack: read bp + write one-hot (i32) + read one-hot (reduce)
       compact:   read + write cur_b (and bias/rig planes when present)
+
+    device_kind defaults to ``jax.devices()[0].device_kind``; a kind
+    missing from ``PEAK_HBM_GBPS`` raises ValueError.
     """
-    if hbm_gbps is None:
-        try:
-            import jax
-            kind = jax.devices()[0].device_kind.lower()
-            hbm_gbps = next((v for k, v in _HBM_GBPS.items() if k in kind),
-                            _DEFAULT_HBM)
-        except Exception:
-            hbm_gbps = _DEFAULT_HBM
+    if device_kind is None:
+        import jax
+        device_kind = jax.devices()[0].device_kind
+    if device_kind not in PEAK_HBM_GBPS:
+        raise ValueError(f"no peak bandwidth on record for device kind "
+                         f"{device_kind!r}; add it to PEAK_HBM_GBPS")
     plane = H * W * 4
     n_extra = int(has_bias) + int(has_rig)
     b = {
@@ -115,21 +93,14 @@ def seam_roofline(H: int, W: int, has_bias: bool = False,
         "commit_amortized": plane // 4,
     }
     total = sum(b.values())
-    # dependency-chain floor: the forward sweep's per-row chain (wedge:
-    # min,min,+e) plus the backward chase's (one roll-level + cheap ops),
-    # H rows each, serialized. This is the binding limit at VMEM-resident
-    # sizes; HBM only binds once the planes spill (H*W >~ 1.5M px).
-    chain_ns = H * (_FWD_CHAIN_DEPS * _TAU_CHEAP_NS
-                    + _BWD_ROLLS * _TAU_ROLL_NS
-                    + _BWD_CHAIN_CHEAP * _TAU_CHEAP_NS)
     return Roofline(hbm_bytes=total, seq_rows=H,
-                    sol_seams_per_s=hbm_gbps * 1e9 / total, breakdown=b,
-                    chain_floor_seams_per_s=1e9 / chain_ns)
+                    sol_seams_per_s=PEAK_HBM_GBPS[device_kind] * 1e9 / total,
+                    breakdown=b, device_kind=device_kind)
 
 
 class Stopwatch:
-    """Phase timer with device-fetch sync (honest on async/relay
-    backends). Use: sw = Stopwatch(); ...; sw.lap('carve', state.depth)."""
+    """Phase timer that waits for the device before each lap.
+    Use: sw = Stopwatch(); ...; sw.lap('carve', state.depth)."""
 
     def __init__(self):
         self.t0 = time.perf_counter()
@@ -138,7 +109,7 @@ class Stopwatch:
     def lap(self, name: str, sync_on=None) -> float:
         if sync_on is not None:
             import jax
-            np.asarray(jax.device_get(sync_on))
+            jax.block_until_ready(sync_on)
         now = time.perf_counter()
         dt = now - self.t0
         self.laps.append((name, dt))

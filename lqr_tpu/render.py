@@ -9,7 +9,7 @@ GIMP-free image model:
 - ``render_flatten``       <- render_flatten       (render.c:576-681)
 - ``render_dump_vmap``     <- render_dump_vmap     (render.c:683-759)
 
-The carve engine underneath is the TPU carver (lqr_tpu.carver.Carver); this
+The carve engine underneath is the device carver (lqr_tpu.carver.Carver); this
 layer owns output targets, aux-layer cropping, scaleback modes, seam-map
 layers, and alpha-lock restoration.
 """
@@ -84,7 +84,6 @@ def _crop_aux_to_layer(image: Image, ref, layer: Layer) -> bool:
 
 
 def init_carver(image: Image, cfg: LqrConfig, interactive: bool = False,
-                use_pallas: bool | None = None,
                 progress=None) -> CarverData:
     """Build and fully configure the carver (render_init_carver)."""
     layer = (image.layer_ref(cfg.selected_layer_name)
@@ -143,7 +142,7 @@ def init_carver(image: Image, cfg: LqrConfig, interactive: bool = False,
         lock_rig = _crop_aux_to_layer(image, cfg.rigmask_layer, work_layer)
 
     carver = Carver(work_layer.pixels, delta_x=cfg.delta_x,
-                    rigidity=rigidity_init(cfg), use_pallas=use_pallas)
+                    rigidity=rigidity_init(cfg))
     if progress is not None:
         carver.set_progress(progress)
 

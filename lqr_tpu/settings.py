@@ -8,7 +8,7 @@ blended config under ``plug_in_lqr`` for the following
 RUN_WITH_LAST_VALS invocation to pick up (/root/reference/gap/
 plug_in_lqr_iter.c:114, replay main.c:388-390).
 
-TPU-native analog: a JSON dotfile keyed store. Laws mirrored exactly:
+The analog here: a JSON dotfile keyed store. Laws mirrored exactly:
 
 - ``save_vals`` applies the ``set_aux_layer_name`` rule
   (main.c:474-486): an aux layer's NAME is stored only while the mask is

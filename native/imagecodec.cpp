@@ -1,6 +1,6 @@
 // Native host-side image codec + buffer marshalling for lqr_tpu.
 //
-// This is the TPU-framework replacement for the reference's pixel I/O
+// This is the framework's replacement for the reference's pixel I/O
 // bridge (GIMP tile/pixel-region plumbing, /root/reference/src/
 // io_functions.c:29-68 rgb_buffer_from_layer and friends): the host work
 // of getting u8 pixel buffers in and out of files and into the layouts

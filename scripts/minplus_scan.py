@@ -12,13 +12,11 @@ column x+d to exit column x of the path's energy sum.  Operators
 compose by banded tropical matmul; applying one to the frontier is
   M_out[x] = min_{|d|<=R} (M_in[x+d] + T_b[d][x]).
 
-Why this LOSES on an issue-bound VPU (v5e), measured and counted:
+What the reformulation costs, counted:
 
-1. WORK, not depth, is the budget. The VPU issues vector ops in order;
-   the sequential chain is not latency-bound (the ~7-op dependent chain
-   per row retires far faster than the ~35 issued slots per row of the
-   full kernel). Cutting DEPTH while growing WORK is a loss by
-   construction:
+1. WORK grows while DEPTH shrinks. Where the device issues the row
+   chain's vector ops faster than their latency, cutting depth while
+   growing work is a loss by construction:
      - sequential: H rows x (2 shifts + 2 mins + 1 add) ~ 5H vector ops.
      - block apply: per block, 2R+1 diagonals each needing a shift
        (|d| up to R: still one roll+fix) + add + min ~ 3(2R+1) ops;
@@ -29,9 +27,9 @@ Why this LOSES on an issue-bound VPU (v5e), measured and counted:
        is a 3-way min of shifted+summed diagonals ~ 4(2r+1) batched ops;
        summed over r = 1..R ~ 4R^2 per block — at R=8 that is ~256
        batched ops per 8 rows (32/row-equivalent) on top.
-   Total: ~(6 + 32/occupancy)H vs 5H. The reformulation only pays on
-   hardware where the sequential chain STALLS (GPU warp latency; very
-   deep pipelines) — on the VPU it never stalls.
+   Total: ~(6 + 32/occupancy)H vs 5H. The reformulation can only pay
+   where the sequential chain stalls on latency; the script measures
+   which side of that line the live backend is on.
 
 2. Bit-exactness is impossible in f32. The scan reassociates the path
    sum (e-sums accumulate inside T before meeting M), so ties and

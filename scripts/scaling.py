@@ -1,12 +1,9 @@
 """Scaling measurement on the virtual 8-device mesh (BASELINE.md target:
 >= 80% multi-host efficiency).
 
-This host has ONE real TPU chip and 2 CPU cores, so a wall-clock speedup
-across 8 *virtual* CPU devices is physically impossible (they timeshare
-the same 2 cores). Round 2 reported t_unsharded/t_sharded as an
-"efficiency" and got 2.5 — nonsense a reviewer rightly refused (VERDICT r2
-weak #3). What this script now reports is only what this hardware can
-defensibly support:
+Virtual CPU devices timeshare the host's cores, so a wall-clock speedup
+across them is no scaling efficiency. What this script reports is only
+what such a run can defensibly support:
 
 1. **Collective audit (compiled HLO).** The data-parallel resize must
    compile with ZERO collectives touching image planes (scalar seam-count
@@ -18,9 +15,9 @@ defensibly support:
    per-device work == total work / n_devices. efficiency_model =
    flops_unsharded / (n_devices * flops_per_device_sharded), an
    *analytic* number the compiler's own cost model certifies — the
-   quantity that becomes wall-clock efficiency on real multi-chip
-   hardware, where ICI transfer time (audited to be zero here for the
-   data axis) is the only subtraction.
+   quantity that becomes wall-clock efficiency on real multi-device
+   hardware, where interconnect transfer time (audited to be zero here
+   for the data axis) is the only subtraction.
 
 3. **Same-host walls**, reported as raw walls with the explicit caveat —
    never as an efficiency.
@@ -132,9 +129,8 @@ def main():
                           "--xla_force_host_platform_device_count=8")
     import jax
     import jax.numpy as jnp
-    if not os.environ.get("LQR_SCALING_ON_TPU"):
-        jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+    from lqr_tpu import compile_cache
+    compile_cache.enable()
 
     from bench import make_test_image
     from lqr_tpu.parallel.batch import BatchCarver, extend_map_batched

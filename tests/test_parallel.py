@@ -186,14 +186,11 @@ def test_batch_prestacked_zero_copy_path(make_image):
                               np.asarray(bc_b.state.vs)), W
 
 
-def test_sharded_dp_pallas_block_bit_exact():
-    """The per-shard Pallas block DP (ops.dp_block, VERDICT r4 #3) in
-    interpret mode must match both the pure-JAX sharded path and the
-    unsharded scan, including rigidity and both side preferences."""
+def test_sharded_dp_wide_prefs_rig_bit_exact():
+    """The column-sharded DP at a wide buffer must match the unsharded
+    scan, including rigidity and both side preferences."""
     if len(jax.devices()) < 8:
         pytest.skip("not enough devices")
-    import os
-    os.environ["LQR_PALLAS_INTERPRET"] = "1"
     rng = np.random.default_rng(17)
     H, Wb = 32, 1024
     e = rng.random((H, Wb), dtype=np.float32)
@@ -204,13 +201,9 @@ def test_sharded_dp_pallas_block_bit_exact():
                          (True, 2, True)):
         ref = np.asarray(jdp.find_seam(jnp.asarray(e), jnp.asarray(rig),
                                        jnp.bool_(pref), dx, hr))
-        scan = np.asarray(find_seam_sharded(
-            mesh, jnp.asarray(e), jnp.asarray(rig), jnp.bool_(pref), dx,
-            hr, use_pallas=False))
         got = np.asarray(find_seam_sharded(
             mesh, jnp.asarray(e), jnp.asarray(rig), jnp.bool_(pref), dx,
-            hr, use_pallas=True))
-        assert np.array_equal(ref, scan), (pref, dx, hr)
+            hr))
         assert np.array_equal(ref, got), (pref, dx, hr)
 
 
@@ -324,33 +317,49 @@ def test_graft_entry_dryrun():
     ge.dryrun_multichip(8)
 
 
-def test_batch_scan_pallas_tier_bit_exact(make_image):
-    """The equal-height Pallas tier (lax.scan over images through the
-    solo engine, r4) must produce the identical visibility maps as the
-    vmapped scan-DP batched path — including ragged widths and per-image
-    seam counts."""
-    import os
-    from lqr_tpu.parallel.batch import BatchCarver
+def test_batch_equal_heights_match_solo_carver(make_image):
+    """An equal-height batch with ragged widths and per-image seam counts
+    carves each image exactly as a solo Carver does."""
+    from lqr_tpu import Carver
 
     imgs = [make_image(h=24, w=40), make_image(h=24, w=36),
             make_image(h=24, w=40)]
     counts = np.array([6, 4, 5], np.int32)
-    os.environ["LQR_PALLAS_INTERPRET"] = "1"
-    try:
-        bp = BatchCarver([i.copy() for i in imgs], use_pallas=True)
-        assert bp.scan_pallas
-        bp.carve(counts)
-        vs_p = np.asarray(bp.state.vs)
-    finally:
-        del os.environ["LQR_PALLAS_INTERPRET"]
-    bs = BatchCarver(imgs, use_pallas=False)
-    assert not bs.scan_pallas
-    bs.carve(counts)
-    assert np.array_equal(vs_p, np.asarray(bs.state.vs))
+    bc = BatchCarver(imgs)
+    assert not bc.ragged
+    bc.carve(counts)
+    outs = bc.images_at(bc.widths - counts)
+    for im, k, out in zip(imgs, counts, outs):
+        c = Carver(im)
+        c.resize(im.shape[1] - int(k), im.shape[0])
+        assert np.array_equal(out, c.get_image())
 
 
-def test_batch_scan_pallas_gated_off_when_ragged_or_meshed(make_image):
-    from lqr_tpu.parallel.batch import BatchCarver
-    ragged = BatchCarver([make_image(h=24, w=32), make_image(h=16, w=32)],
-                         use_pallas=True)
-    assert not ragged.scan_pallas            # ragged heights -> scan DP
+@pytest.mark.parametrize("dtype", [np.float32, np.uint16, np.int32])
+def test_batch_rejects_non_uint8_stack(dtype):
+    """A pre-stacked [B, H, W, C] batch is used as raw u8 pixels; any
+    other dtype is refused rather than silently truncated."""
+    from lqr_tpu.errors import LqrImageError
+    arr = np.zeros((2, 8, 16, 3), dtype)
+    with pytest.raises(LqrImageError, match="uint8"):
+        BatchCarver(arr)
+
+
+@pytest.mark.parametrize("n,data,shape", [(8, None, (8, 1)),
+                                          (8, 1, (1, 8)),
+                                          (8, 2, (2, 4)),
+                                          (4, 4, (4, 1))])
+def test_make_mesh_layouts(n, data, shape):
+    """The default puts every device on 'data'; ``data`` names the split
+    explicitly."""
+    if len(jax.devices()) < n:
+        pytest.skip("not enough devices")
+    mesh = make_mesh(n, data=data)
+    assert (mesh.shape["data"], mesh.shape["cols"]) == shape
+
+
+def test_make_mesh_rejects_uneven_split():
+    if len(jax.devices()) < 8:
+        pytest.skip("not enough devices")
+    with pytest.raises(ValueError, match="must divide"):
+        make_mesh(8, data=3)

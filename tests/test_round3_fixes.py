@@ -91,7 +91,7 @@ def test_render_with_id_based_disc_mask(make_image):
         img.add_layer(m, 0)
         cfg = LqrConfig(new_width=24, new_height=20,
                         disc_layer=ref_of(m))
-        cd = init_carver(img, cfg, use_pallas=False)
+        cd = init_carver(img, cfg)
         assert render_noninteractive(cfg, SeamColors(), cd)
         return cd.image.layer_by_name(cd.layer_name).pixels
 
